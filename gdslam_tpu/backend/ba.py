@@ -6,7 +6,7 @@ that observe those points but are outside the local set held fixed; two
 passes (5 then 10 iterations) with chi2-based outlier edge removal between
 and after (5.991 mono / 7.815 stereo), Huber robust kernel.
 
-TPU design: no sparse graph. The edge set is the dense [A, N] keyframe x
+Design: no sparse graph. The edge set is the dense [A, N] keyframe x
 keypoint observation table (A = local + fixed keyframes, N = features per
 keyframe, invalid entries masked), so residuals/Jacobians are one vmapped
 computation; the point-block inverse is a closed-form batched 3x3; the
@@ -94,9 +94,9 @@ def build_problem(arena: ma.MapArena, kf_id, cfg: SlamConfig) -> LocalBAProblem:
     obs_slot = jnp.where(dup, -1, obs_slot)
     # Inverse map [A, P]: which keypoint row observes point slot p in camera
     # a (N = none). Built ONCE here so every GN iteration can GATHER the
-    # per-point blocks instead of scatter-adding them — scatters into the
-    # [A, P, 30] accumulation buffers dominated BA time on the TPU (~44 ms
-    # of a 52 ms solve: serialized scatter + inter-iteration buffer copies).
+    # per-point blocks instead of scatter-adding them into [A, P, 30]
+    # accumulation buffers (serialized scatters + inter-iteration buffer
+    # copies).
     N = obs_slot.shape[1]
     slot_pos = jnp.where(obs_slot >= 0, obs_slot, P_CAP)
     inv_idx = jnp.full((A, P_CAP + 1), N, jnp.int32).at[
@@ -212,7 +212,7 @@ def run_local_ba(arena: ma.MapArena, prob: LocalBAProblem, cfg: SlamConfig,
         Hcc = jnp.einsum("anri,an,anrj->aij", Jc, w, Jc, precision=_PREC)[:L]
         bc = jnp.einsum("anri,an,anr->ai", Jc, w, r, precision=_PREC)[:L]
         # Point blocks: one flat scatter-add over all [A*N] edges into the
-        # small [P,12] accumulator (cheap — output fits VMEM-scale tiles).
+        # small [P,12] accumulator.
         JpwJp = jnp.einsum("anri,an,anrj->anij", Jp, w, Jp,
                            precision=_PREC).reshape(A, -1, 9)
         Jpwr = jnp.einsum("anri,an,anr->ani", Jp, w, r, precision=_PREC)
@@ -230,8 +230,8 @@ def run_local_ba(arena: ma.MapArena, prob: LocalBAProblem, cfg: SlamConfig,
         # A keyframe observes each point through at most ONE keypoint
         # (duplicates masked in build_problem), so [L,N] -> [L,P] is a pure
         # permutation: GATHER through the precomputed inverse index — a
-        # scatter here serialized and forced large buffer copies every GN
-        # iteration (~44 ms of a 52 ms solve).
+        # scatter here serializes and forces large buffer copies every GN
+        # iteration.
         JcwJp = jnp.einsum("anri,an,anrj->anij", Jc[:L], w[:L], Jp[:L],
                            precision=_PREC).reshape(L, -1, 18)
         JcwJp_ext = jnp.concatenate(

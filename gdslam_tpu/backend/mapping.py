@@ -1,11 +1,11 @@
 """LocalMapping map-growth duties: epipolar triangulation + point upkeep.
 
-TPU-native re-design of the reference LocalMapping map-growing stages:
+Re-design of the reference LocalMapping map-growing stages:
 
 - `create_new_map_points` — CreateNewMapPoints (LocalMapping.cc:207-453):
   triangulate unassociated keypoints of the new keyframe against its best
   covisible neighbors. The per-pair search (SearchForTriangulation +
-  epipolar check, ORBmatcher.cc:657, 140) becomes one dense [N, N] MXU
+  epipolar check, ORBmatcher.cc:657, 140) becomes one dense [N, N]
   Hamming matrix masked by the epipolar-line distance gate; the per-match
   SVD triangulation (LocalMapping.cc:300-320) is a vmapped 4x4 DLT; the
   parallax / cheirality / reprojection / scale-consistency gates
@@ -148,8 +148,8 @@ def create_new_map_points(arena: ma.MapArena, kf_id, cfg: SlamConfig,
 
         i2 = jnp.where(matched, arg, 0)
         # Triangulate: two-ray midpoint (closed form). The reference's SVD
-        # DLT (LocalMapping.cc:300-320) costs ~15k tiny SVDs per keyframe on
-        # TPU; the midpoint of the common perpendicular is arithmetic only,
+        # DLT (LocalMapping.cc:300-320) costs ~15k tiny SVDs per keyframe;
+        # the midpoint of the common perpendicular is arithmetic only,
         # and the parallax/reprojection gates below reject the cases where
         # the two differ.
         Kinv_ = Kinv
@@ -372,10 +372,9 @@ def fuse_into_keyframe(arena: ma.MapArena, kf_id, cfg: SlamConfig):
         base_radius=3.0)
     cap = min(4096, arena.pmax)
     score = jnp.where(vis, 1 + arena.pt_n_obs, 0)
-    # approx_max_k: TPU-native bucketed selection — exact top_k over the
-    # [pmax] score vector is a sort and costs several ms; candidate recall
-    # loss at the budget boundary only reorders the lowest-priority points.
-    _, cand_ids = jax.lax.approx_max_k(score.astype(jnp.float32), cap)
+    # exact selection; float32 (small integer scores, exact) is XLA:CPU's
+    # fast top_k path
+    _, cand_ids = jax.lax.top_k(score.astype(jnp.float32), cap)
     cand_ids = cand_ids.astype(jnp.int32)
     cvalid = vis[cand_ids]
     kp_valid = arena.kf_kp_valid[kf_id]

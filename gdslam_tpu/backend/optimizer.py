@@ -6,7 +6,7 @@ one SE3 camera pose, 4 rounds x 10 iterations, with per-round chi2
 inlier reclassification (5.991 mono / 7.815 stereo) and per-level
 information scaling (sigma2 = scale^2level).
 
-TPU design: instead of g2o's sparse graph, residuals and 2x6/3x6 Jacobians
+Design: instead of g2o's sparse graph, residuals and 2x6/3x6 Jacobians
 are closed-form and vmapped over a fixed-size padded match set; the 6x6
 normal equations are formed with one einsum and solved with Cholesky inside
 `lax.fori_loop`. The whole optimization is a single XLA program with zero
@@ -90,7 +90,7 @@ def pose_optimization(T_init: jnp.ndarray, obs: PoseObs, K: tuple, bf: float,
     per round; undamped GN on this well-conditioned 6-dof problem converges
     quadratically in <=4 (verified: identical inlier sets and poses to 1e-6
     on the synthetic rig), and each extra iteration is pure latency on the
-    hot path (40 x ~96 us profiled = ~4 ms/frame) — so 5/round.
+    hot path — so 5/round.
     Observations with ur < 0 are monocular.
     """
     is_stereo = obs.ur >= 0

@@ -7,10 +7,10 @@ measurements = relative poses at graph-build time (loop edges carry the
 Sim3/SE3 computed by the loop solver), 20 iterations.
 
 For RGB-D the scale is fixed (Sim3Solver.h:20 bFixScale), so the graph is
-optimized over SE3. TPU design: per-edge 6x6 Jacobian blocks come from
+optimized over SE3. Design: per-edge 6x6 Jacobian blocks come from
 `jax.jacfwd` of the closed-form residual (exact, no hand-derived adjoints),
 assembled into a dense [6K, 6K] normal matrix with scatter-adds and solved
-with Cholesky — at K<=512 this is a 3072^2 dense solve, ideal MXU work.
+with Cholesky — at K<=512 this is a 3072^2 dense solve.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Closed-form alignment solvers + vmapped RANSAC.
 
-Replaces the reference's sampling solvers with TPU-native vmapped hypothesis
+Replaces the reference's sampling solvers with vmapped hypothesis
 batteries:
 
 - `horn_alignment`: Horn's absolute-orientation closed form (SVD) for
@@ -292,7 +292,7 @@ def optimize_sim3(X1, X2, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid,
     after the first round (cc:1350-1365), second round on survivors, final
     inlier = both directions under th2.
 
-    Returns (R, t, s, inliers [N] bool, n_inliers). TPU design: one fused
+    Returns (R, t, s, inliers [N] bool, n_inliers). Design: one fused
     GN program, jacfwd over the 7-vector tangent (scale column zeroed when
     with_scale=False), fixed 2x5 iterations — no per-edge host loop."""
     fx, fy, cx, cy = K

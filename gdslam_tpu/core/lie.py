@@ -21,9 +21,9 @@ import jax.numpy as jnp
 
 _EPS = 1e-8
 
-# TPU matmul defaults to bf16 inputs; for 3x3/4x4 pose algebra that costs
-# ~pixel-level reprojection error (measured 2.4 px on a two-view round trip).
-# All products here are tiny, so pin them to full f32 precision.
+# Accelerator matmuls default to reduced-precision inputs (TF32 on the GPU);
+# for 3x3/4x4 pose algebra that costs ~pixel-level reprojection error. All
+# products here are tiny, so pin them to full f32 precision.
 _PREC = jax.lax.Precision.HIGHEST
 
 
@@ -144,7 +144,7 @@ def so3_project(R: jnp.ndarray, iters: int = 3) -> jnp.ndarray:
     reaches det(R)=1.14 within ~20 frames and breaks every downstream
     transpose-inverse, including loop-closure propagation). GN pose updates
     (exp(xi) @ T) preserve but never remove the deviation, so the state
-    boundary must re-project. TPU-friendly: 3 tiny matmuls, no SVD."""
+    boundary must re-project. 3 tiny matmuls, no SVD."""
     I = jnp.eye(3, dtype=R.dtype)
     for _ in range(iters):
         R = 0.5 * _mm(R, 3.0 * I - _mm(jnp.swapaxes(R, -1, -2), R))

@@ -1,6 +1,6 @@
 """ORB feature extractor: pyramid -> FAST -> distribution -> angle -> rBRIEF.
 
-TPU re-design of the reference ORBextractor::operator() pipeline
+Re-design of the reference ORBextractor::operator() pipeline
 (ORBextractor.cc:1043-1105):
 - ComputePyramid (1107-1132)        -> ops.image.build_pyramid (one [L,H,W]
   canvas, static shapes)
@@ -72,16 +72,11 @@ def _level_candidates(score: jnp.ndarray, h: int, w: int):
 
 @partial(jax.jit, static_argnums=(1, 2, 3))
 def extract(img: jnp.ndarray, cfg: OrbConfig, height: int, width: int) -> Features:
-    """Run the full ORB pipeline on a grayscale image [H, W] float32.
-
-    The pyramid/FAST/blur stages run in bfloat16 — they are HBM-bandwidth
-    bound and the 0-255 intensity scale tolerates the precision (descriptor
-    bits are comparisons; FAST thresholds are 7/20).
-    """
+    """Run the full ORB pipeline on a grayscale image [H, W] float32."""
     # f32 throughout: bf16 pyramid quantization (~±0.5 intensity) jitters
     # FAST corner positions and flips BRIEF comparison bits — measured as a
     # >10x ATE regression. The pyramid stages are compute-cheap anyway; the
-    # expensive parts (resize, patches, BRIEF taps) are MXU matmuls.
+    # expensive parts (resize, patches, BRIEF taps) are matmuls.
     canvas, _ = image_ops.build_pyramid(
         img, height, width, cfg.n_levels, cfg.scale_factor)
     # static per-level shapes (the jitted build_pyramid's returned tuple is
@@ -121,7 +116,8 @@ def extract(img: jnp.ndarray, cfg: OrbConfig, height: int, width: int) -> Featur
             top_s = jnp.pad(top_s, (0, k - k_eff))
             top_i = jnp.pad(top_i, (0, k - k_eff))
         uv_lv = cand_uv[top_i]                       # [k, 2] level coords
-        # MXU patch extraction; angle from the raw level, bits from blurred.
+        # Matmul patch extraction; angle from the raw level, bits from
+        # blurred.
         ang = orb_ops.ic_angle_from_patches(
             orb_ops.extract_patches(canvas[lv], uv_lv))
         desc = orb_ops.brief_from_patches(

@@ -11,8 +11,8 @@ Mirrors Frame's RGB-D constructor pipeline (reference Frame.cc:236-317):
   sampled at the *distorted* keypoint location.
 
 The 64x48 feature grid (Frame.cc:402-417) is intentionally absent: windowed
-search is done with dense masked distance matrices on the MXU (see
-frontend/matcher.py), which is the TPU-idiomatic equivalent.
+search is done with dense masked distance matrices (see
+frontend/matcher.py), the fixed-shape equivalent.
 """
 
 from __future__ import annotations

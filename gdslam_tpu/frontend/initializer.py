@@ -7,7 +7,7 @@ then pose recovery — E = K^T F K decomposition into 4 (R, t) candidates (or
 the homography's planar decomposition, here covered by the same E path),
 selected by cheirality vote of triangulated points.
 
-TPU design: all RANSAC hypotheses are vmapped SVD batteries — no sequential
+Design: all RANSAC hypotheses are vmapped SVD batteries — no sequential
 iteration; triangulation is a closed-form batched DLT.
 """
 

@@ -1,13 +1,13 @@
-"""Dense projection-guided descriptor matching on the MXU.
+"""Dense projection-guided descriptor matching.
 
 Replaces ORBmatcher's grid-windowed searches (reference ORBmatcher.cc:
 SearchByProjection map->frame :45, frame->frame motion model :1328,
 relocalization :1472) with one fused dense program: project M candidate
-points, build an [M, N] Hamming matrix with an int8 MXU matmul, mask it by
+points, build an [M, N] Hamming matrix with an int8 matmul, mask it by
 pixel radius / scale window / frustum, and take per-keypoint argmin. At
-M=4096, N=1500 this is a ~1.6 GMAC int8 matmul — microseconds on a v5e —
-so the CPU-oriented grid indirection (Frame.cc:402-417, GetFeaturesInArea)
-is simply unnecessary.
+M=4096, N=1500 this is a ~1.6 GMAC int8 matmul (its time on the H100 is in
+PERF.md), so the CPU-oriented grid indirection (Frame.cc:402-417,
+GetFeaturesInArea) is unnecessary.
 
 Thresholds follow ORBmatcher.cc:37-39: TH_HIGH=100, TH_LOW=50,
 HISTO_LENGTH=30 (rotation-consistency histogram, top-3 bins kept).

@@ -2,8 +2,9 @@
 
 The native library (native/tum_loader.cpp) decodes PNGs on a background
 thread into a bounded ring buffer so IO overlaps device compute — the
-runtime role the reference fills with its C++ driver thread. Falls back to
-the pure-Python TumSequence if the library isn't built.
+runtime role the reference fills with its C++ driver thread. It is built
+from the committed sources by native/build.sh at first use; a failed build
+raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -22,14 +23,12 @@ def _load_lib():
     path = os.path.abspath(_LIB_PATH)
     if not os.path.exists(path):
         build = os.path.join(os.path.dirname(path), "build.sh")
-        if os.path.exists(build):
-            try:
-                subprocess.run(["sh", build], check=True,
-                               capture_output=True, timeout=120)
-            except Exception:
-                return None
-    if not os.path.exists(path):
-        return None
+        proc = subprocess.run(["sh", build], capture_output=True, text=True,
+                              timeout=120)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building the native TUM loader failed ({build}, exit "
+                f"{proc.returncode}):\n{proc.stderr.strip()}")
     lib = ctypes.CDLL(path)
     lib.tum_loader_open.restype = ctypes.c_void_p
     lib.tum_loader_open.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
@@ -54,11 +53,12 @@ def _load_lib():
 _LIB = None
 
 
-def available() -> bool:
+def _lib():
+    """The loaded library, built on first use."""
     global _LIB
     if _LIB is None:
         _LIB = _load_lib()
-    return _LIB is not None
+    return _LIB
 
 
 class NativeTumSequence:
@@ -71,9 +71,7 @@ class NativeTumSequence:
         a 4x-smaller host->device upload; the System converts to float
         meters ON DEVICE (the reference's DepthMapFactor contract,
         Tracking.cc:GrabImageRGBD imDepth convertTo)."""
-        if not available():
-            raise RuntimeError("native loader not built (run native/build.sh)")
-        self._h = _LIB.tum_loader_open(sequence_dir.encode(),
+        self._h = _lib().tum_loader_open(sequence_dir.encode(),
                                        associations_path.encode(),
                                        depth_map_factor)
         if not self._h:

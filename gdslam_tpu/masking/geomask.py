@@ -95,11 +95,11 @@ def mahalanobis_mask(ref_depth, cur_depth, flow, T_cur_ref, sem_mask,
     the mask to frame t, accepting the object-motion misalignment; indexing
     by the current frame keeps the mask aligned with the frame it culls).
 
-    TPU design: at production resolutions the whole program runs on a
+    Design: at production resolutions the whole program runs on a
     REDUCED grid (res_factor: /4 at >=480 rows, /2 at >=240) and the mask
     is upsampled at the end. The warp gathers + the ~100-op planar
-    elementwise pipeline are resolution-bound (full-res profiled 42 ms,
-    half-res 10 ms, quarter-res ~2.5 ms on v5e); mask fidelity holds at the
+    elementwise pipeline scale with the grid's pixel count (the H100 cost
+    of each grid is ROADMAP A6); mask fidelity holds at the
     blob scale this masker feeds (keypoint culling + morphological open —
     a TUM-scale dynamic object spans >=10 px even on the quarter grid).
     Small test rigs (<240 rows) keep the full-res path.
@@ -169,9 +169,8 @@ def mahalanobis_mask(ref_depth, cur_depth, flow, T_cur_ref, sem_mask,
 
     # Everything below runs PLANAR (structure-of-arrays: separate [H, W]
     # planes per vector/matrix component). Stacked [H, W, 3] / [H, W, 3, 3]
-    # layouts put a 3-wide axis in the minor (lane) dimension, so every op
-    # uses ~2% of the VPU lanes — the einsum formulation of this block ran
-    # at ~3 ms per fused op (profiled), ~50 ms total.
+    # layouts put a 3-wide axis in the minor dimension, which vector units
+    # use poorly.
     R, T = T_cur_ref[:3, :3], T_cur_ref[:3, 3]
     uc, vc = uv_cur[..., 0], uv_cur[..., 1]
     # back-projections, componentwise
@@ -250,8 +249,7 @@ def mahalanobis_mask(ref_depth, cur_depth, flow, T_cur_ref, sem_mask,
     m = jnp.where(valid, m, 0.0)
     # Materialize the distance map ONCE: without the barrier XLA fuses the
     # whole Mahalanobis pipeline into EACH downstream reduction (the
-    # min/max/quantile passes), recomputing it ~12x (~3 ms per fusion,
-    # profiled — the entire 55 ms cost of this program).
+    # min/max/quantile passes), recomputing it ~12x.
     m, valid = jax.lax.optimization_barrier((m, valid))
 
     # Normalize over valid pixels -> [0, 255]. The reference min-max
@@ -260,8 +258,8 @@ def mahalanobis_mask(ref_depth, cur_depth, flow, T_cur_ref, sem_mask,
     # of valid values, clipped — same intent, outlier-robust.
     m_min = jnp.min(jnp.where(valid, m, jnp.inf))
     m_min = jnp.where(jnp.isfinite(m_min), m_min, 0.0)
-    # 99.5th percentile by bisection counting: a full sort of the [H*W]
-    # map costs tens of ms on TPU; 12 fused compare-reduce passes resolve
+    # 99.5th percentile by bisection counting instead of a full sort of
+    # the [H*W] map: 12 fused compare-reduce passes resolve
     # the quantile to max/4096, far below the normalization's sensitivity.
     n_valid = jnp.sum(valid).astype(jnp.float32)
     target = 0.995 * n_valid
@@ -313,9 +311,9 @@ def mahalanobis_mask(ref_depth, cur_depth, flow, T_cur_ref, sem_mask,
 
 def res_factor(cfg: SlamConfig) -> int:
     """Downsample factor of the Mahalanobis grid: 4 at production
-    resolutions (>=480 rows; quarter-res profiled ~4x cheaper than half
-    with no measurable mask-recall loss on the synthetic guard), 2 at
-    medium (>=240), 1 on small test rigs where blobs would starve."""
+    resolutions (>=480 rows; a quarter of the half-res grid's pixels with
+    no measurable mask-recall loss on the synthetic guard), 2 at medium
+    (>=240), 1 on small test rigs where blobs would starve."""
     h = cfg.camera.height
     return 4 if h >= 480 else (2 if h >= 240 else 1)
 

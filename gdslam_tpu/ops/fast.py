@@ -3,12 +3,12 @@
 Replaces cv::FAST as used by the reference's grid extractor
 (ORBextractor.cc:765-853: threshold 20 with per-cell fallback to 7).
 
-TPU design: instead of branchy per-pixel arc walks, the 16 Bresenham-circle
+Design: instead of branchy per-pixel arc walks, the 16 Bresenham-circle
 taps become 16 rolled copies of the image; the "9 contiguous" test is a
 bit-trick on a packed 16-bit mask (doubled to 32 bits, AND of 8 shifts), and
 the corner score is the classic max-over-arcs of min-over-arc |difference|,
 computed with a log-step circular min. Everything is elementwise on [H, W]
-maps — ideal VPU work, and XLA fuses the whole thing.
+maps — elementwise work that XLA fuses into one program.
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ Algorithm (Farneback 2003): approximate each neighborhood by a quadratic
 polynomial via Gaussian-weighted least squares ("polynomial expansion"),
 then solve for the displacement field that maps one expansion onto the
 other, smoothed over a window, iterated coarse-to-fine over a pyramid.
-Everything is convolutions + bilinear warps — dense VPU work that XLA fuses;
+Everything is convolutions + bilinear warps — dense elementwise work that XLA fuses;
 there is no per-pixel branching.
 """
 
@@ -84,8 +84,7 @@ def _flow_step(A1, b1, img2, flow, winsize: int):
     """One Farneback displacement update.
 
     The textbook form warps the 6 polynomial-expansion fields of image 2 by
-    the current flow (6 dense gathers, ~9 ns/element on TPU — measured to
-    dominate the whole GD pipeline). Instead we warp IMAGE 2 once and
+    the current flow (6 dense gathers). Instead we warp IMAGE 2 once and
     re-expand it (one gather + cheap convolutions): the classic pyramidal
     warping formulation.
     """

@@ -1,11 +1,12 @@
-"""Hamming distance between 256-bit ORB descriptors, MXU-friendly.
+"""Hamming distance between 256-bit ORB descriptors as an int8 matmul.
 
 Replaces ORBmatcher::DescriptorDistance (ORBmatcher.cc:1647-1665, the 32-byte
 popcount) and every brute-force distance matrix in ORBmatcher / DBoW2.
 
 Two forms:
 - `hamming_matrix(pm1_a, pm1_b)`: descriptors as {-1,+1} int8 vectors; the
-  distance matrix is one int8 matmul on the MXU: ham = (256 - a.b) / 2.
+  distance matrix is one int8 matmul with int32 accumulation (exact):
+  ham = (256 - a.b) / 2.
   This is the hot path (frame-to-map matching, BoW scoring).
 - `hamming_packed(a, b)`: XOR + popcount on packed uint8, for small/irregular
   comparisons.
@@ -31,7 +32,7 @@ def hamming_packed(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
 
 def hamming_matrix(pm1_a: jnp.ndarray, pm1_b: jnp.ndarray) -> jnp.ndarray:
-    """All-pairs Hamming distances via one MXU int8 matmul.
+    """All-pairs Hamming distances via one int8 matmul.
 
     pm1_*: [N, 256] int8 in {-1, 0, +1} (0 rows = invalid -> distance 128).
     Returns [Na, Nb] int32.
@@ -48,9 +49,8 @@ def best_two(dists: jnp.ndarray, axis: int = -1):
     """Best and second-best distances + best index along an axis.
 
     Used for the ratio test (mfNNratio) in ORBmatcher::SearchByBoW etc.
-    Sort-free: XLA lowers top_k to a full per-row sort (~2.7 ms on a
-    [1500, 4096] matrix, profiled), while min + masked-second-min is three
-    cheap passes.
+    Sort-free: XLA lowers top_k to a per-row sort, while min +
+    masked-second-min is three cheap passes.
     """
     d = dists.swapaxes(axis, -1)
     best = jnp.min(d, axis=-1)

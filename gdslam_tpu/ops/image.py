@@ -5,7 +5,7 @@ Replaces the reference's OpenCV usage in ORBextractor::ComputePyramid
 the 7x7 sigma-2 GaussianBlur applied before descriptor computation
 (ORBextractor.cc:1085-1086).
 
-TPU design: all pyramid levels live in ONE fixed-shape [L, H, W] canvas with
+Design: all pyramid levels live in ONE fixed-shape [L, H, W] canvas with
 per-level valid sizes, so every downstream op (FAST, blur, descriptor
 sampling) is a single vmapped kernel over the level axis with static shapes.
 """
@@ -52,13 +52,10 @@ def bilinear_sample(img: jnp.ndarray, uv: jnp.ndarray,
     Out-of-bounds samples return `fill`. This is the workhorse behind
     remap/warp (reference cv::remap in inpainting) and descriptor sampling.
 
-    TPU formulation: the naive 4x `img[vi, ui]` advanced-index lowers to 2-D
-    gathers that run at SECONDS per 480x640 call on v5e (measured 5.2 s on
-    incoherent indices, 17 ms coherent). Instead the four taps of each
-    pixel's 2x2 footprint are pre-packed into contiguous rows of a
-    [(H+1)*(W+1), 4] array (cheap shifted-slice writes), so the whole
-    bilinear read is ONE row gather — measured 5-10 ms full-res and ~4 ms at
-    240x320, stable across index coherence.
+    Formulation: instead of four `img[vi, ui]` advanced-index reads (four
+    2-D gathers), the four taps of each pixel's 2x2 footprint are
+    pre-packed into contiguous rows of a [(H+1)*(W+1), 4] array (cheap
+    shifted-slice writes), so the whole bilinear read is ONE row gather.
     """
     H, W = img.shape[-2], img.shape[-1]
     u, v = uv[..., 0], uv[..., 1]
@@ -110,13 +107,15 @@ def resize_bilinear(img: jnp.ndarray, out_h: int, out_w: int) -> jnp.ndarray:
     """cv::resize INTER_LINEAR-compatible resize.
 
     Implemented as two static interpolation-matrix products (R @ img @ C^T)
-    so it runs on the MXU — a gather-based formulation costs ~2 ms per
-    pyramid level on TPU (measured), the matmul form is microseconds.
+    instead of a gather (whether a gather is cheaper on the GPU is
+    ROADMAP A4). Pinned to full float32: in TF32 the pyramid levels move
+    FAST keypoints (PERF.md).
     """
     H, W = img.shape
     R = jnp.asarray(_interp_matrix(H, out_h), img.dtype)
     C = jnp.asarray(_interp_matrix(W, out_w), img.dtype)
     return jnp.einsum("oh,hw,pw->op", R, img, C,
+                      precision=jax.lax.Precision.HIGHEST,
                       preferred_element_type=img.dtype)
 
 

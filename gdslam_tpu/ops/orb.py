@@ -1,4 +1,4 @@
-"""ORB keypoint orientation + rBRIEF descriptors, batched for TPU.
+"""ORB keypoint orientation + rBRIEF descriptors, batched over keypoints.
 
 Replaces the reference's IC_Angle (ORBextractor.cc:77-104) and
 computeOrbDescriptor (ORBextractor.cc:108-147).
@@ -28,6 +28,10 @@ import numpy as np
 PATCH = 31
 HALF_PATCH = 15
 N_BITS = 256
+# The matmuls below copy or select pixel values; on the GPU a float32
+# matmul otherwise runs in TF32, which rounds the values it copies
+# (PERF.md: TF32 moved keypoints and descriptor bits against the CPU).
+_COPY = jax.lax.Precision.HIGHEST
 
 
 def _np_pattern(seed: int = 42, n_bits: int = N_BITS) -> np.ndarray:
@@ -64,9 +68,8 @@ def extract_patches(img: jnp.ndarray, uv: jnp.ndarray,
                     size: int = PATCH_EXT) -> jnp.ndarray:
     """[K, size, size] patches centered at round(uv), out-of-image = 0.
 
-    TPU gathers run at ~9 ns/element (measured); patch extraction as two
-    one-hot matmuls rides the MXU instead and is ~5x faster for the
-    1500-keypoint descriptor stage.
+    Formulated as two one-hot matmuls instead of a gather (whether a
+    gather is cheaper on the GPU is ROADMAP A4).
     """
     H, W = img.shape
     half = size // 2
@@ -75,12 +78,12 @@ def extract_patches(img: jnp.ndarray, uv: jnp.ndarray,
     rows = v[:, None] + jnp.arange(-half, half + 1)[None]      # [K, size]
     cols = u[:, None] + jnp.arange(-half, half + 1)[None]
     # f32 one-hot products copy pixel values EXACTLY — descriptor bits are
-    # comparisons of near-equal smoothed values, so bf16 here flips bits.
+    # comparisons of near-equal smoothed values, so rounding here flips bits.
     Roh = (rows[:, :, None] == jnp.arange(H)[None, None]).astype(jnp.float32)
     Coh = (cols[:, :, None] == jnp.arange(W)[None, None]).astype(jnp.float32)
     t = jnp.einsum("krh,hw->krw", Roh, img.astype(jnp.float32),
-                   preferred_element_type=jnp.float32)
-    return jnp.einsum("krw,kcw->krc", t, Coh,
+                   precision=_COPY, preferred_element_type=jnp.float32)
+    return jnp.einsum("krw,kcw->krc", t, Coh, precision=_COPY,
                       preferred_element_type=jnp.float32)
 
 
@@ -118,7 +121,7 @@ def ic_angle(img: jnp.ndarray, uv: jnp.ndarray) -> jnp.ndarray:
 def _np_bin_matrix() -> np.ndarray:
     """[37*37, N_ANGLE_BINS * 512] static tap-selection matrix: for rotation
     bin b and tap t (2 per bit), column b*512+t selects the patch pixel the
-    rotated pattern samples. BRIEF sampling then becomes one MXU matmul."""
+    rotated pattern samples. BRIEF sampling then becomes one matmul."""
     pat = _np_pattern()                        # [256, 2, (x, y)]
     G = np.zeros((PATCH_EXT * PATCH_EXT, N_ANGLE_BINS * 512), np.float32)
     for b in range(N_ANGLE_BINS):
@@ -143,13 +146,13 @@ def brief_from_patches(patches: jnp.ndarray, angle: jnp.ndarray) -> jnp.ndarray:
     """
     K = patches.shape[0]
     flat = patches.reshape(K, -1).astype(jnp.float32)
-    S = jnp.einsum("kp,pc->kc", flat, _BIN_MATRIX,
+    S = jnp.einsum("kp,pc->kc", flat, _BIN_MATRIX, precision=_COPY,
                    preferred_element_type=jnp.float32)
     S = S.reshape(K, N_ANGLE_BINS, 512)
     bins = jnp.mod(jnp.round(angle / (2 * jnp.pi / N_ANGLE_BINS)).astype(jnp.int32),
                    N_ANGLE_BINS)
     boh = (bins[:, None] == jnp.arange(N_ANGLE_BINS)[None]).astype(jnp.float32)
-    V = jnp.einsum("kb,kbs->ks", boh, S)       # [K, 512]
+    V = jnp.einsum("kb,kbs->ks", boh, S, precision=_COPY)       # [K, 512]
     bits = V[:, 0::2] < V[:, 1::2]
     return pack_bits(bits)
 
@@ -180,7 +183,8 @@ def unpack_bits(packed: jnp.ndarray) -> jnp.ndarray:
 
 
 def descriptors_pm1(packed: jnp.ndarray, valid=None) -> jnp.ndarray:
-    """[..., 32] uint8 -> [..., 256] int8 in {-1, +1} for MXU Hamming.
+    """[..., 32] uint8 -> [..., 256] int8 in {-1, +1} for the int8
+    Hamming matmul (ops/hamming.py).
 
     Invalid rows (valid == False) become all-zero so their dot products
     vanish instead of matching.

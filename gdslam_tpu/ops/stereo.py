@@ -6,7 +6,7 @@ Hamming distance within the disparity range, then refine the disparity with
 an 11x11 SAD search (+-5 px) and parabolic subpixel interpolation; outputs
 mvuRight and mvDepth.
 
-TPU design: the per-row candidate lists become one dense [N, N] masked
+Design: the per-row candidate lists become one dense [N, N] masked
 Hamming matrix; SAD refinement extracts strips with the one-hot-matmul patch
 machinery and evaluates all 11 offsets as a vectorized comparison.
 """

@@ -8,7 +8,8 @@ tracking, the keyframe decision, keyframe/map-point insertion into a
 per-slot map arena, and point culling — as ONE on-device program sharded
 with `shard_map` over a 1-D `seq` axis. `jax.lax` collectives appear only
 for metric reduction, so the single-sequence program compiles
-collective-free while the batched program rides ICI.
+collective-free while the batched program's one psum crosses the
+devices (NVLink between the cards of one host).
 
 Control flow that the host `Tracking` state machine does per frame
 (initialized? tracking ok? need keyframe?) runs on-device with `lax.cond`:

@@ -4,7 +4,7 @@ Replaces the Pangolin Viewer/FrameDrawer/MapDrawer stack (reference
 Viewer.cc, FrameDrawer.cc:38-167, MapDrawer.cc:44-264) with a headless
 renderer: the current frame annotated with keypoints/matches and an
 orthographic top-down map view (points, keyframe frusta, covisibility
-edges), written as PNGs — suitable for remote/TPU machines with no GL.
+edges), written as PNGs — suitable for remote machines with no GL.
 """
 
 from __future__ import annotations

@@ -2,7 +2,6 @@ import os
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from gdslam_tpu.backend import gba, map_arena as ma
 from gdslam_tpu.config import CameraConfig, SlamConfig
@@ -102,8 +101,6 @@ class TestNativeLoader:
 
         from gdslam_tpu.io import native_loader
         from gdslam_tpu.io.tum import TumSequence
-        if not native_loader.available():
-            pytest.skip("native loader not built")
         d = str(tmp_path)
         os.makedirs(d + "/rgb"), os.makedirs(d + "/depth")
         lines = []
